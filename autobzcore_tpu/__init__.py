@@ -1,4 +1,4 @@
-"""autobzcore_tpu: TPU-native Brillouin-zone integration & Wannier interpolation.
+"""autobzcore_tpu: Brillouin-zone integration & Wannier interpolation in JAX.
 
 A from-scratch JAX/XLA framework with the capabilities of AutoBZCore.jl
 (reference layout documented in SURVEY.md): a SciML-style problem/solver

@@ -53,7 +53,7 @@ class AbsoluteEstimate(IntegralAlgorithm):
         ``SweepSolver``): the estimate phase runs inside the same program and
         its norm feeds the absolute phase's tolerance as a traced scalar —
         so ``PTR_IAI``/``AutoPTR_IAI`` parameter sweeps batch like any other
-        algorithm (VERDICT r2 weak #5)."""
+        algorithm."""
         import jax.numpy as jnp
 
         from .base import effective_tolerances

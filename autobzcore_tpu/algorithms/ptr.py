@@ -4,7 +4,7 @@
 (``src/algorithms.jl:342-380``); ``AutoSymPTRJL`` of the p-adaptive
 ``autosymptr`` driver (``src/algorithms.jl:393-432``).
 
-TPU-native design: the rule is a dense masked reduction.  For symmetric BZs
+Design: the rule is a dense masked reduction.  For symmetric BZs
 the representative points and orbit weights are host-precomputed
 (:func:`ops.symptr.symptr_rule`) and baked into the program as static gather
 indices, so the integrand is evaluated only on the irreducible wedge — a

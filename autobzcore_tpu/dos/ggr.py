@@ -7,7 +7,7 @@ closed-form box-broadened delta contributions per (k, band).  Second-order
 convergent; robust at band crossings [Liu, Yu, Duan, Gilat-correction per the
 reference ``src/dos_ggr.jl:102``].
 
-TPU-native: the eigensolve grid is one batched ``jnp.linalg.eigh``; the per-E
+Formulation: the eigensolve grid is one batched ``jnp.linalg.eigh``; the per-E
 accumulation is a dense vectorized reduction, so 1000-energy sweeps reuse the
 spectral data at negligible cost (the reference's cache-reuse property,
 ``docs/src/dos.md:36-42``) and run as a single vmapped kernel.
@@ -78,17 +78,14 @@ _GGR_FORMULAS = {1: _ggr_1d, 2: _ggr_2d, 3: _ggr_3d}
 class GGR(DOSAlgorithm):
     """``GGR(npt=50)`` (reference ``src/dos_algorithms.jl:23``).
 
-    ``precision='auto'`` picks the complex path on CPU and the split-complex
-    f64 tier on TPU (complex128 is unavailable there).  Split tiers:
-    ``'split'`` (TPU default) computes eigenvalues AND velocities in full
-    f64 through the real-embedding eigh (70.9 s warm init for the 30-band
-    npt=60 grid after the slab/chunk restructure); ``'rayleigh'`` gets f64
-    eigenvalues from a native c64 eigh + split-f64 Rayleigh quotients with
-    f32-grade vectors: ~1e-6 relative DOS for isolated bands, but at band
-    crossings the arbitrary cluster basis changes how GGR splits box
-    contributions (measured 0.2% on a crossing-dense 30-band model; within
-    GGR's own crossing error, yet the embedding tier is no slower warm,
-    hence the default).  Force ``'complex'``/``'rayleigh'``/``'split'``.
+    Precision follows the series dtype: ``precision='auto'`` (and
+    ``'complex'``) evaluates and eigendecomposes H(k) in the series' own
+    complex dtype (complex128 by default).  The split-complex tiers are
+    opt-in: ``'split'`` computes eigenvalues AND velocities in f64 through
+    the real-embedding eigh; ``'rayleigh'`` gets f64 eigenvalues from a c64
+    eigh + split-f64 Rayleigh quotients with f32-grade vectors (~1e-6
+    relative DOS for isolated bands; at band crossings the arbitrary
+    cluster basis changes how GGR splits box contributions).
     """
 
     def __init__(self, npt=50, precision="auto"):
@@ -101,9 +98,9 @@ class GGR(DOSAlgorithm):
             return "embedding"
         if self.precision == "rayleigh":
             return "rayleigh"
-        if self.precision == "complex":
+        if self.precision in ("complex", "auto"):
             return None
-        return "embedding" if jax.devices()[0].platform == "tpu" else None
+        raise ValueError("precision must be 'auto', 'complex', 'split' or 'rayleigh'")
 
     def init_cacheval(self, h, domain, p):
         if isinstance(h, JacobianSeries):
@@ -133,9 +130,7 @@ class GGR(DOSAlgorithm):
             reps, weights = symptr_rule(npt, d, bz.syms)
 
         # spectral data: grid evaluation + batched eigh in ONE compiled
-        # program.  Coefficients enter as HLO literals and only real arrays
-        # (energies, velocities) cross the jit boundary, so this runs on TPU
-        # backends that reject complex runtime parameters.
+        # program; only real arrays (energies, velocities) leave it.
         u = [np.arange(npt) / npt * h.period[j] for j in range(d)]
         if reps is not None:
             lin = np.ravel_multi_index(tuple(reps.T.astype(np.int64)), (npt,) * d)
@@ -153,11 +148,10 @@ class GGR(DOSAlgorithm):
             cre, cim = c_np.real, c_np.imag
             V = int(np.prod(c_np.shape[d:], dtype=np.int64)) or 1
 
-            # Memory plan: the x64 rewriter materializes an 8x-stacked f32
-            # image of each f64 grid tensor, so a 30-band npt=60 grid costs
-            # ~6G per tensor and the all-at-once build OOMs (measured 33-43G
-            # vs 15.75G HBM).  Evaluate in slabs over the first grid
-            # dimension, one dispatch per (slab, tensor), gathering each
+            # Memory plan: the all-at-once build of a many-band grid holds
+            # several full (npt^d, m, m) f64 tensors at once.  Evaluate in
+            # slabs over the first grid dimension (a ~1.5e9-byte budget per
+            # slab tensor), one dispatch per (slab, tensor), gathering each
             # slab's reduced representatives immediately.  Ragged per-slab
             # counts pad to the max; pad lanes carry weight 0 downstream.
             S = max(1, min(npt, int(1.5e9 // (8 * npt ** (d - 1) * V * 4))))
@@ -180,8 +174,7 @@ class GGR(DOSAlgorithm):
                 def one(u1, sidx):
                     nodes = [u1] + [u[j] for j in range(1, d)]
                     hr, hi = evaluate_grid_split(cre, cim, d, nodes, h.offset,
-                                                 h.period, derivs=derivs,
-                                                 method="emul")
+                                                 h.period, derivs=derivs)
                     # FLAT (K, V) layout: (..., m, m)-minor arrays pad onto
                     # (8, 128) tiles (4.3x at 30 bands) — keep the value axis
                     # one big minor dim in storage

@@ -54,8 +54,7 @@ class FourierSeries:
 
     def __init__(self, c, period=1.0, offset=None, ndim=None, dtype=jnp.complex128):
         # Coefficients stay HOST-resident (numpy) unless already traced: they
-        # are rule-construction data, and embedding them as HLO literals
-        # sidesteps TPU backends that reject complex runtime parameters.
+        # are rule-construction data, embedded in programs as literals.
         if not isinstance(c, jax.core.Tracer):
             c = np.asarray(c, dtype)
         d = ndim if ndim is not None else c.ndim
@@ -178,9 +177,9 @@ class FourierValue:
 class StoredSeriesValues:
     """Series values stored as (re, im) real array pairs.
 
-    Complex arrays cannot be runtime parameters on all TPU backends, so
-    persisted rule data is split into real pairs at jit boundaries and
-    re-joined inside compiled programs.
+    Persisted rule data is split into real pairs at jit boundaries and
+    re-joined inside compiled programs (a complex-splitting boundary queued
+    for removal, ROADMAP D2).
     """
 
     def __init__(self, parts, jacobian):
@@ -249,8 +248,8 @@ class FourierIntegrand:
         (``src/fourier.jl:127-130,210-214``).
 
         Returns a :class:`StoredSeriesValues` holding (re, im) real device
-        arrays: complex data never crosses a jit boundary (TPU backends reject
-        complex runtime parameters), coefficients enter as HLO literals.
+        arrays: complex data never crosses a jit boundary, coefficients enter
+        as HLO literals.
         """
         d = self.s.ndim
         periods = self.s.period  # JacobianSeries forwards the base period
@@ -398,8 +397,9 @@ class FourierCarrier:
         assert s.sndim == 1
         ph = phase_matrix(xs, s.c.shape[0], s.offset[0], s.period[0], 0, s.dtype)
         flatc = s.c.reshape(s.c.shape[0], -1)
-        # HIGHEST precision: TPU's bf16 matmul default cost 4% DOS error at
-        # sharp spectral peaks through this innermost evaluation
+        # HIGHEST precision: a reduced-precision f32 matmul default (bf16 or
+        # TF32 passes) costs percent-level DOS error at sharp spectral peaks
+        # through this innermost evaluation
         svals = jnp.matmul(ph, flatc, precision=jax.lax.Precision.HIGHEST)
         svals = svals.reshape((xs.shape[0],) + s.c.shape[1:])
         pts = assemble_points(xs, coords)
@@ -411,17 +411,18 @@ class FourierCarrier:
 
 
 class SplitFourierCarrier:
-    """Split-complex (f64-on-TPU) twin of :class:`FourierCarrier`.
+    """Split-complex (f64 pairs) twin of :class:`FourierCarrier`, behind the
+    opt-in ``IAI(precision="split"|"guided")`` tiers.
 
     Coefficients live as (re, im) f64 pairs and every contraction is
     elementwise or a single non-batched HIGHEST-precision tensordot, so the
-    whole nested adaptive solve runs in emulated double precision on TPU
-    without ever materializing complex128 (which the x64 rewriter rejects).
+    whole nested adaptive solve runs in double precision without ever
+    materializing complex128.
     User kernels receive ``FourierValue(x, SplitComplex(h_re, h_im))``; the
     shipped observables (``models/observables``) handle both value types.
 
-    Enables the reference's headline IAI-at-tight-tolerance capability
-    (``src/brillouin.jl:361-377``) on TPU hardware.
+    The reference's headline IAI-at-tight-tolerance capability
+    (``src/brillouin.jl:361-377``) also runs on the default complex128 path.
     """
 
     def __init__(self, pf, c_re, c_im, offset, period, sndim):

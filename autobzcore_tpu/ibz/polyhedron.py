@@ -13,7 +13,7 @@ point group — a fundamental domain of volume V_BZ / |G|.
 Slicing (device): all faces are affine half-spaces ``n . x <= c``.  Fixing
 the outermost coordinate keeps them affine, so inner segment endpoints are
 computed with fixed-shape masked min/max reductions over the static face set —
-the TPU-native version of the reference's per-slice polygon walking
+the on-device version of the reference's per-slice polygon walking
 (``ext/ibzlims.jl:198-289``).
 """
 from __future__ import annotations

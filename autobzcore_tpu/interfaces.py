@@ -109,8 +109,8 @@ def solve_(cache: IntegralCache) -> IntegralSolution:
     sol = cache.alg.do_solve(cache.f, cache.dom, cache.p, cache.cacheval, **cache.kwargs)
     from .utils.tree import host_complex_safe
 
-    # complex device buffers cannot cross the hosted-TPU transfer boundary;
-    # split them into real pairs on device and rejoin on host (no-op on CPU)
+    # complex device results come back as real pairs rejoined on the host
+    # (utils.tree.host_complex_safe; no-op on CPU)
     return IntegralSolution(
         host_complex_safe(sol.u), host_complex_safe(sol.resid), sol.retcode, sol.numevals
     )

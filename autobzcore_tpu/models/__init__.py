@@ -12,14 +12,15 @@ from .selfenergy import (SigmaCallable, SigmaDOSSolver, SigmaInterpolant,
 from .observables import (CertifiedSweep, SpectralPack, TransportSolver,
                           certified_ladder,
                           certified_transport_sweep, spectral_velocity_pack)
-from .tight_binding import (integer_lattice, synthetic_wannier, tb_graphene,
+from .tight_binding import (cubic_t2g, flagship_model, integer_lattice, synthetic_wannier, t2g_rep,
+                            tb_graphene,
                             tb_haldane, tb_integer, tb_kane_mele,
                             tb_kane_mele_sz, tb_weyl)
 from .transport import (ElectronCountSolver, KineticCoefficientSolver, fermi,
                         fermi_window, fermi_window_limits, optical_conductivity)
 
 __all__ = [
-    "integer_lattice", "synthetic_wannier", "tb_graphene", "tb_haldane",
+    "cubic_t2g", "flagship_model", "integer_lattice", "synthetic_wannier", "t2g_rep", "tb_graphene", "tb_haldane",
     "tb_integer", "tb_kane_mele", "tb_kane_mele_sz", "tb_weyl", "BerryCurvatureSolver", "BerryPack", "berry_pack", "lattice_chern", "wilson_loop_spectrum", "z2_invariant",
     "ElectronCountSolver", "KineticCoefficientSolver", "fermi", "fermi_window",
     "fermi_window_limits", "optical_conductivity",

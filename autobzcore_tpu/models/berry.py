@@ -4,9 +4,9 @@ conductivity on the cached spectral grid.
 Beyond the reference's surface (AutoBZCore.jl ships the integration
 machinery; its companion application packages compute transport responses
 with it — cf. the kinetic-coefficient solvers in ``models/transport.py``).
-Formulated TPU-first like :class:`~.observables.TransportSolver`: the
-(H, dH) grid is evaluated and eigendecomposed ONCE (one batched program on
-the MXU), and every (mu, beta) query is a masked reduction over the cached
+Formulated like :class:`~.observables.TransportSolver`: the (H, dH) grid
+is evaluated and eigendecomposed ONCE (one batched program), and every
+(mu, beta) query is a masked reduction over the cached
 band-resolved curvature.
 
 Physics: the band Berry curvature from Kubo perturbation theory,
@@ -69,9 +69,9 @@ class BerryPack(NamedTuple):
 
 def _slab_rows(h, npt, d, max_pts=1 << 18):
     """Row slabs along the first grid dim: (S, L) first-coordinate table plus
-    the fixed inner nodes.  Per-slab temps (K_loc, d, d, m, m) stay bounded —
-    the unchunked build at npt >= ~2048 hit XLA's small-matmul tile padding
-    (64x expansion, 32 G HBM for a 128 M tensor) on TPU."""
+    the fixed inner nodes.  Per-slab temps (K_loc, d, d, m, m) stay bounded,
+    where an unchunked build at npt >= ~2048 would hold the whole grid's
+    small-matrix products at once."""
     L = npt
     while L > 1 and L * npt ** (d - 1) > max_pts:
         L //= 2
@@ -153,8 +153,8 @@ def berry_pack(h: FourierSeries, bz, npt, degtol=1e-8) -> BerryPack:
     build = _berry_build_fn(npt, d, np.shape(h.c), h.period, h.offset,
                             h.dtype, degtol)
     c = np.asarray(h.c)
-    # (re, im) real argument pair: complex jit arguments are rejected by
-    # some TPU backends (see StoredSeriesValues)
+    # (re, im) real argument pair (a complex-splitting boundary, see
+    # StoredSeriesValues)
     e, Om, Mm, vd = build(jnp.asarray(c.real), jnp.asarray(c.imag))
     return BerryPack(e, Om, Mm, vd, d, npt)
 

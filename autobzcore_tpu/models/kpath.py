@@ -7,7 +7,7 @@ interpolation machinery this uses (``FourierSeriesEvaluators``, reference
 ``src/AutoBZCore.jl:62``) but no path driver; this is the standard companion
 tool users expect next to a DOS curve.
 
-TPU shape: the whole path is one ``evaluate_points`` batch + one batched
+Shape: the whole path is one ``evaluate_points`` batch + one batched
 ``eigh`` inside a single jitted program; A(k, omega) maps are one broadcast
 Lorentzian contraction over the cached eigenvalues.
 """
@@ -67,8 +67,8 @@ _KPATH_CACHE = {}
 def _kpath_fn(kind, cshape, sndim, offset, period, dtype, extra=None):
     """One compiled executable per (kind, coefficient shape, ...): repeated
     path evaluations (scans, animations) skip recompilation — coefficients
-    ride as (re, im) runtime arguments (same pattern as berry.py's builds;
-    complex jit arguments are rejected by some TPU backends)."""
+    ride as (re, im) runtime arguments (same pattern as berry.py's
+    builds)."""
     from ..ops.eigh3 import eigvalsh_small
     from ..ops.fourier_eval import evaluate_points
 

@@ -3,7 +3,7 @@
 The reference leaves integrand kernels to user scripts (e.g. the DOS trace at
 ``aps_example/aps_example.jl:30``, gradient/transport workloads via
 ``JacobianSeries``).  Here the common ones ship as a library, formulated for
-batched TPU execution: every kernel works on a ``FourierValue`` and is safe
+batched device execution: every kernel works on a ``FourierValue`` and is safe
 under ``vmap`` over both k-points and parameter sweeps.
 
 Eigendecomposition forms are provided where they enable parameter-sweep reuse:
@@ -71,8 +71,8 @@ def gathered_grid(h, d, u, lin, jacobian=False):
 
 
 def _trace_inv_small(M):
-    """Tr M^{-1} by the adjugate identity for m <= 3 — closed-form, no LU
-    (TPU's LuDecomposition expander rejects c128 and is slow for tiny m)."""
+    """Tr M^{-1} by the adjugate identity for m <= 3 — closed-form, no
+    batched LU (slow for tiny m)."""
     m = M.shape[-1]
     if m == 1:
         return 1.0 / M[..., 0, 0]
@@ -80,14 +80,14 @@ def _trace_inv_small(M):
     det = jnp.linalg.det(M)  # explicit cofactor formula for m <= 3 in XLA
     if m == 2:
         return tr / det
-    # tr(M^2) = sum_ij M_ij M_ji as an elementwise reduction — a batched 3x3
-    # matmul would be padded onto MXU tiles (~50x memory blowup at 1e7 batch)
+    # tr(M^2) = sum_ij M_ij M_ji as an elementwise reduction — no batched
+    # tiny matmul
     tr2 = jnp.sum(M * jnp.swapaxes(M, -1, -2), axis=(-1, -2))
     return (tr * tr - tr2) / (2.0 * det)
 
 
 def _inv_small(M):
-    """Closed-form inverse for m <= 3 (adjugate / det — no LU on TPU)."""
+    """Closed-form inverse for m <= 3 (adjugate / det — no batched LU)."""
     m = M.shape[-1]
     if m == 1:
         return 1.0 / M
@@ -110,10 +110,10 @@ def greens_function_trace(hv, om, eta=None):
 
     Small bands (m <= 3) use the closed-form adjugate trace; larger Hermitian
     H goes through eigenvalues (Tr (z-H)^{-1} = sum_i 1/(z - e_i)), avoiding
-    batched LU entirely — both forms are exact and TPU-native.
+    batched LU entirely — both forms are exact.
 
     Accepts either a complex series value or a :class:`SplitComplex` one (the
-    f64-on-TPU adaptive tier, ``IAI(precision='split')``); the split branch
+    opt-in split-f64 adaptive tier, ``IAI(precision='split')``); the split branch
     returns a SplitComplex scalar."""
     from ..ops.scomplex import SplitComplex, sc_eye, sc_trace_inv_small
 
@@ -159,7 +159,7 @@ def dos_trace(hv, om, eta=None):
 
 def spectral_function(hv, om, eta=None):
     """Full matrix spectral function A(k, om) = -Im G / pi (closed-form
-    small-m inverse — jnp.linalg.inv is LU, which TPU rejects for c128)."""
+    small-m inverse, no batched LU)."""
     m = hv.s.shape[-1]
     z = (om + 1j * eta) * jnp.eye(m, dtype=hv.s.dtype)
     G = _inv_small(z - hv.s)
@@ -334,7 +334,7 @@ def spectral_velocity_pack(h: FourierSeries, bz, npt) -> SpectralPack:
     w = jnp.asarray(weights, jnp.real(P).dtype)
     K, m = e.shape
     # weight-absorbed GEMM operand: W[(k,n,m), (a,b)] — a whole omega sweep
-    # becomes ONE (Omega, K m^2) x (K m^2, d^2) matmul on the MXU instead of
+    # becomes ONE (Omega, K m^2) x (K m^2, d^2) matmul instead of
     # per-omega tiny einsums
     Wmat = (w[:, None, None, None, None] * P).transpose(0, 3, 4, 1, 2).reshape(K * m * m, d * d)
 
@@ -346,7 +346,7 @@ class TransportSolver:
     """Reusable Kubo-Greenwood transport sweep.
 
     The (H, dH) grid is evaluated and eigendecomposed ONCE at construction
-    (or shared via ``pack=``); each call costs one MXU GEMM over (omega, k,
+    (or shared via ``pack=``); each call costs one GEMM over (omega, k,
     band-pair) (the reference would re-solve the BZ integral per frequency).
     Returns (W, d, d).
 

@@ -192,6 +192,90 @@ def tb_weyl(m=2.0, period=1.0, dtype=None):
                          dtype=dtype or jnp.complex128)
 
 
+def t2g_rep(g):
+    """The t2g representation ``D(g)`` of a 3x3 signed permutation ``g``.
+
+    The orbitals (yz, zx, xy) are the symmetric pair tensors
+    ``Q_i = e_b e_c^T + e_c e_b^T`` with ``{b, c} = {0, 1, 2} \\ {i}``; ``g``
+    maps ``Q_i`` to ``g Q_i g^T = +-Q_j``, so ``D(g)`` is a signed permutation
+    and ``D(gh) = D(g) D(h)``."""
+    g = np.asarray(g, dtype=np.float64)
+    Q = []
+    for i in range(3):
+        b, c = [j for j in range(3) if j != i]
+        q = np.zeros((3, 3))
+        q[b, c] = q[c, b] = 1.0
+        Q.append(q)
+    D = np.zeros((3, 3))
+    for i in range(3):
+        gq = g @ Q[i] @ g.T
+        for j in range(3):
+            D[j, i] = np.sum(Q[j] * gq) / 2
+    return D
+
+
+def cubic_t2g(seed=0, dtype=None):
+    """Seeded 3-band t2g stand-in for a cubic Wannier Hamiltonian, with the
+    footprint of the SrVO3 t2g model: a 5x5x5 R-box of real hoppings.
+
+    Random real hoppings ``H_R`` decaying like ``exp(-|R|)`` are made
+    Hermitian (``H_{-R} = H_R^T``) and averaged over the 48 cubic operations,
+    ``H_R <- mean_g D(g)^T H_{gR} D(g)`` with ``D = t2g_rep(g)``, so that
+    ``H(g k) = D(g) H(k) D(g)^T`` holds exactly and every IBZ rule over
+    ``CubicSymIBZ`` equals its full-zone sum.  The spectrum is then scaled to
+    a 3 eV width and shifted by an on-site term to be centered on 12.5 eV
+    (both measured on a 12^3 grid), so the bands fill about [11, 14] eV,
+    inside the aps window [10, 15]."""
+    import jax.numpy as jnp
+
+    from ..ops.symptr import cube_automorphism_syms
+
+    nr, center, width = 5, 12.5, 3.0
+    rng = np.random.default_rng(seed)
+    o = (nr - 1) // 2
+    R = np.stack(np.meshgrid(*[np.arange(nr) - o] * 3, indexing="ij"), axis=-1)
+    C = rng.normal(size=(nr, nr, nr, 3, 3))
+    C *= np.exp(-np.linalg.norm(R, axis=-1))[..., None, None]
+    C = (C + np.flip(C, axis=(0, 1, 2)).swapaxes(-1, -2)) / 2
+    Cs = np.zeros_like(C)
+    syms = cube_automorphism_syms(3)
+    for g in syms:
+        D = t2g_rep(g)
+        gR = R @ np.asarray(g).T + o  # index of g R
+        CgR = C[gR[..., 0], gR[..., 1], gR[..., 2]]
+        Cs += np.einsum("ji,abcjk,kl->abcil", D, CgR, D)
+    C = Cs / len(syms)
+    # spectrum on a coarse grid sets the scale and the on-site shift
+    u = np.arange(12) / 12
+    ph = np.exp(2j * np.pi * np.outer(u, np.arange(nr) - o))
+    hk = np.einsum("ka,lb,mc,abcij->klmij", ph, ph, ph, C, optimize=True)
+    e = np.linalg.eigvalsh(hk.reshape(-1, 3, 3))
+    scale = width / (e.max() - e.min())
+    C *= scale
+    C[o, o, o] += (center - scale * (e.max() + e.min()) / 2) * np.eye(3)
+    return FourierSeries(C.astype(np.complex128), period=1.0, offset=(-o,) * 3, ndim=3,
+                         dtype=dtype or jnp.complex128)
+
+
+def flagship_model(hr=None, wout=None, seed=0, dtype=None):
+    """``(h, bz, label)``: the flagship 3-band Hamiltonian and its
+    ``CubicSymIBZ``.  With a Wannier90 ``hr`` file (and the ``wout`` file
+    that holds its lattice) the model is read from them (label
+    ``"wannier90"``); without, it is :func:`cubic_t2g` from ``seed`` on a
+    cubic lattice with a = 3.84 Angstrom (label ``"synthetic"``)."""
+    from ..brillouin import CubicSymIBZ, load_bz
+
+    if hr is None:
+        return (cubic_t2g(seed=seed, dtype=dtype),
+                load_bz(CubicSymIBZ(), 3.84 * np.eye(3)), "synthetic")
+    if wout is None:
+        raise ValueError("a Wannier90 hr file needs its wout file for the lattice")
+    from ..io.wannier90 import hamiltonian_fourier_series, read_w90_hrdat
+
+    h = hamiltonian_fourier_series(read_w90_hrdat(hr), dtype=dtype)
+    return h, load_bz(CubicSymIBZ(), wout), "wannier90"
+
+
 def synthetic_wannier(nbands, nr=5, ndim=3, decay=1.0, seed=0, period=1.0, dtype=None):
     """Random Hermitian-symmetric Wannier-like model: ``nbands`` bands with
     exponentially decaying real-space hoppings on an ``nr^ndim`` R-box.

@@ -6,13 +6,13 @@ Kubo-Greenwood transport; the transport quantities themselves live one layer
 up (the cited application paper computes them with exactly this machinery —
 ``README.md:20-23`` cites SciPost Phys. 15, 062 (2023), whose headline
 observables are the optical conductivity and kinetic coefficients).  Here
-they ship as first-class solvers, formulated TPU-first:
+they ship as first-class solvers:
 
 - the (H, dH) spectral grid is evaluated, eigendecomposed, and weight-packed
   ONCE (shared with :class:`~.observables.TransportSolver`);
 - the two-frequency transport distribution ``Gamma_ab(w1, w2) =
   sum_k w_k Tr[v_a A(w1) v_b A(w2)]`` is one GEMM per frequency batch
-  (``(B, K m^2) x (K m^2, d^2)`` — MXU-shaped, no per-k small einsums);
+  (``(B, K m^2) x (K m^2, d^2)`` — no per-k small einsums);
 - the frequency integral ``A_alpha(Omega) = int dw (beta w)^alpha
   fermi_window(w, Omega) Gamma(w, w+Omega)`` runs through the framework's
   own adaptive Gauss-Kronrod pool (batched nodes, certified error), over
@@ -223,7 +223,7 @@ class KineticCoefficientSolver:
         frequencies at a time (each keeping its own adaptive pool and early
         exit via ``lax.map``), over the shared superset window interval
         ``[mu - max(Omega) - t, mu + t]``.  Amortizes dispatch the same way
-        ``SweepSolver(scan=True)`` does for omega sweeps (BASELINE.md); pass
+        ``SweepSolver(scan=True)`` does for omega sweeps; pass
         ``mesh`` to shard chunks over devices.  Returns ``(W, d, d)``.
         """
         from ..algorithms.gk import QuadGKJL

@@ -1,4 +1,4 @@
-"""Fixed-shape adaptive Gauss-Kronrod driver (the TPU-native ``quadgk``).
+"""Fixed-shape adaptive Gauss-Kronrod integrator (the on-device ``quadgk``).
 
 The reference's h-adaptive 1D integrators (``quadgk``/``auxquadgk``, driven at
 ``src/algorithms.jl:73-91,202-240``) maintain a dynamic heap of segments and
@@ -10,7 +10,7 @@ inside ``lax.while_loop``:
 - each iteration selects the ``nbisect`` worst intervals with ``top_k``,
   bisects them in bulk, and evaluates all new Gauss-Kronrod nodes in a single
   batched integrand call (``2*nbisect*(2n+1)`` nodes -> one ``vmap``/batch
-  panel, MXU/VPU friendly);
+  panel);
 - convergence follows the reference's semantics: stop when
   ``total_err <= max(abstol, reltol*norm(total_val))``
   (``src/interfaces.jl:91-104``).
@@ -48,11 +48,11 @@ def _err_norm(tree, batch_ndim):
 def _count_dtype():
     """Dtype for evaluation counters: FLOAT, not int32.  Nested stats sum
     per-node inner-solve counts (a single saturating search measured 450M
-    evals, BASELINE.md), so an outer level can exceed 2^31 and an int32
-    counter would wrap NEGATIVE — permanently passing the ``evals <
-    max_evals`` budget check.  f64 counts exactly to 2^53; on TPU with x64
-    off, f32 is exact to 2^24 and merely loses ulps beyond (monotone, never
-    wraps) — strictly safer than modular int32."""
+    evals), so an outer level can exceed 2^31 and an int32 counter would
+    wrap NEGATIVE — permanently passing the ``evals < max_evals`` budget
+    check.  f64 counts exactly to 2^53; with x64 off, f32 is exact to 2^24
+    and merely loses ulps beyond (monotone, never wraps) — strictly safer
+    than modular int32."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
@@ -101,8 +101,8 @@ def gk_rule_eval(batch_f, p, aa, bb, xk, wk, wg, node_builder, stats=False):
         wshape = (1, npts) + (1,) * (v.ndim - 2)
         hshape = (K,) + (1,) * (v.ndim - 2)
         # rule reductions run in the VALUE's (real-counterpart) dtype: f64
-        # weights times c64 guide-tier values would otherwise promote to
-        # complex128, which the TPU x64 rewriter cannot lower
+        # weights times c64 guide-tier values would otherwise promote the
+        # cheap search tier to complex128
         if jnp.issubdtype(v.dtype, jnp.inexact):
             rdt = jnp.finfo(v.dtype).dtype
             wk_, wg_, half_ = wk.astype(rdt), wg.astype(rdt), half.astype(rdt)
@@ -259,8 +259,8 @@ def gk_adaptive(
 
     ``presplit=P`` > 1 starts the pool from P uniform subintervals per
     starting segment, evaluated in ONE batched trip.  Batch width is cheap
-    on TPU while while_loop trip counts are the serial cost (docs/DESIGN.md
-    "depth-bound"), so a presplit trades P× initial evals for the first
+    on the device while while_loop trip counts are the serial cost
+    (docs/DESIGN.md "depth-bound"), so a presplit trades P× initial evals for the first
     ~log2(P) bisection iterations most solves would spend anyway.  Clamped
     so the pool keeps refinement room; ignored on warm starts (the seed IS
     the presplit).
@@ -502,8 +502,8 @@ def gk_adaptive_guided(
 ):
     """Low-precision-guided adaptive GK: search in f32, evaluate in split-f64.
 
-    TPU-original three-phase driver (no reference counterpart — the reference
-    has hardware f64, ``src/algorithms.jl:73-91``):
+    Three-phase integrator with no reference counterpart (the reference
+    integrates in f64 throughout, ``src/algorithms.jl:73-91``):
 
     1. **Search** — run the standard interval-pool refinement with the cheap
        ``batch_f32`` integrand tier until the f32 error estimate reaches

@@ -1,10 +1,10 @@
-"""Split-complex (re, im) evaluation kernels for full f64 precision on TPU.
+"""Split-complex (re, im) evaluation kernels: f64 precision without
+complex128 arrays.
 
-TPU hardware has no complex types; XLA decomposes complex64 into f32 pairs,
-but the f64 emulation layer does not handle complex128 at all (the x64
-rewriter aborts on f64->c128 conversion).  For workloads that need double
-precision — abstol <= 1e-5 spectral integrals, the BASELINE north star — this
-module implements the complex arithmetic manually over f64 real pairs:
+The opt-in split tiers (``IAI(precision="split"|"guided")``,
+``GGR(precision="split"|"rayleigh")``, the ``reduced`` engine of
+``benchmarks/northstar.py``) carry complex values as f64 real pairs; this
+module implements their complex arithmetic:
 
 - ``grid_hermitian_split``: Fourier-series evaluation on a tensor grid via
   cos/sin phase contractions (4 real tensordots per dimension);
@@ -34,39 +34,19 @@ def phase_cs(x, n, offset, period, dtype=jnp.float64, deriv=0):
     return c, s
 
 
-def contract_split(vre, vim, cos, sin, axis, method=None, ndiag=None):
+def contract_split(vre, vim, cos, sin, axis):
     """Contract split-complex ``v`` with phase ``e^{i ang}`` along ``axis``:
     (re + i im)(cos + i sin) summed over the axis, new axis prepends.
 
     Karatsuba form: 3 real tensordots instead of 4 —
-    ``re = cc - ss``, ``im = (c+s)(re+im) - cc - ss`` — measured 16% faster
-    end-to-end on the f64 grid path (TPU v5e, npt=100^3 SrVO3) at
-    machine-noise difference (1e-13 abs) from the 4-matmul form.
-
-    On TPU, LARGE tensordots route through the Ozaki bf16-slice scheme
-    (``ops/ozaki.py``): XLA's emulated-f64 dot-general runs off the MXU at
-    ~6 GFLOP/s, while the slice products ride the systolic array.  Small
-    contractions (adaptive-pool leaf evaluations: K ~ 1e3 nodes x few values)
-    stay on the emulated dot — slicing overhead dominates there (measured:
-    the SrVO3 host-outer IAI solve regressed 180 -> 235 s with Ozaki forced,
-    while the npt=100^3 grid contraction gains 7.4x)."""
+    ``re = cc - ss``, ``im = (c+s)(re+im) - cc - ss``."""
     import jax
 
-    from autobzcore_tpu.ops.ozaki import ozaki_tensordot, use_ozaki
+    prec = jax.lax.Precision.HIGHEST
 
-    # method='emul' pins the emulated dot even for large outputs: Ozaki's
-    # slice/product temporaries add several GB on memory-bound one-shot
-    # evaluations (e.g. the 30-band GGR spectral grid, which OOMed with them)
-    out_elems = cos.shape[0] * (vre.size // max(vre.shape[axis], 1))
-    if method != "emul" and use_ozaki() and out_elems >= (1 << 17):
-        # ndiag threads the caller's accuracy knob into the Ozaki slicing
-        # (grid_sweep's stage 0 must honor the same truncation bound its
-        # stages A/B advertise); None keeps the ~3e-15 default
-        kw = {} if ndiag is None else {"ndiag": ndiag}
-        td = lambda c, v: ozaki_tensordot(c, v, axis, **kw)  # noqa: E731
-    else:
-        prec = jax.lax.Precision.HIGHEST  # TPU default matmul precision is bf16
-        td = lambda c, v: jnp.tensordot(c, v, axes=([1], [axis]), precision=prec)  # noqa: E731
+    def td(c, v):
+        return jnp.tensordot(c, v, axes=([1], [axis]), precision=prec)
+
     rr = td(cos, vre)
     ii = td(sin, vim)
     m3 = td(cos + sin, vre + vim)
@@ -74,7 +54,7 @@ def contract_split(vre, vim, cos, sin, axis, method=None, ndiag=None):
 
 
 def evaluate_grid_split(c_re, c_im, spatial_ndim, nodes, offsets, periods,
-                        dtype=jnp.float64, derivs=None, method=None):
+                        dtype=jnp.float64, derivs=None):
     """Split-complex tensor-grid evaluation; returns (re, im) arrays of shape
     ``(g_1, ..., g_d, *valshape)``.  Mirrors ``fourier_eval.evaluate_grid``."""
     d = spatial_ndim
@@ -87,7 +67,7 @@ def evaluate_grid_split(c_re, c_im, spatial_ndim, nodes, offsets, periods,
     vim = vim.reshape(vim.shape[:d] + (-1,))
     for j in range(d - 1, -1, -1):
         cos, sin = phase_cs(nodes[j], vre.shape[d - 1], offsets[j], periods[j], dtype, derivs[j])
-        vre, vim = contract_split(vre, vim, cos, sin, d - 1, method=method)
+        vre, vim = contract_split(vre, vim, cos, sin, d - 1)
     return (vre.reshape(vre.shape[:d] + vshape), vim.reshape(vim.shape[:d] + vshape))
 
 
@@ -116,10 +96,8 @@ def evaluate_points_split(c_re, c_im, spatial_ndim, X, offsets, periods,
             vre, vim = contract_split(vre, vim, cos, sin, d - 1)
             # -> (K, n_1..n_{d-1}, V)
         else:
-            # per-point contraction of axis j+1 with this point's phase row.
-            # Elementwise multiply+sum, NOT einsum/dot: TPU's x64 rewriter
-            # emulates elementwise f64 faithfully but batched dot-generals
-            # lose the low word (observed ~1e-2 relative error in H(k)).
+            # per-point contraction of axis j+1 with this point's phase row
+            # (elementwise multiply+sum over the small coefficient axis)
             a = j + 1
             vre_m = jnp.moveaxis(vre, a, 1)
             vim_m = jnp.moveaxis(vim, a, 1)
@@ -187,9 +165,7 @@ def eigh_split(h_re, h_im, indep_tol=1e-7):
 
         def orth(rre, rim):
             # coef_j = <kept_j, r> (conjugated kept); unfilled rows are zero,
-            # so they contribute nothing.  Elementwise multiply+sum, NOT
-            # dot-general: TPU's f64 emulation loses the low word in batched
-            # dot-generals.
+            # so they contribute nothing
             cre = jnp.sum(kept_re * rre[..., None, :] + kept_im * rim[..., None, :], axis=-1)
             cim = jnp.sum(kept_re * rim[..., None, :] - kept_im * rre[..., None, :], axis=-1)
             rre = rre - jnp.sum(cre[..., :, None] * kept_re - cim[..., :, None] * kept_im, axis=-2)

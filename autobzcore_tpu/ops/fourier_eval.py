@@ -5,7 +5,7 @@ reference drives (``workspace_allocate/contract!/evaluate!``, reference
 ``src/fourier.jl:61-86,132-164``, ``src/AutoBZCore.jl:62``).  The reference
 contracts one dimension at a time per scalar point with per-thread workspace
 caches; here the same hierarchy becomes **batched complex tensor
-contractions** (matmuls on the MXU):
+contractions** (matrix products):
 
 - ``evaluate_grid``: evaluate on a tensor-product grid one dimension at a
   time — O(N^d * prod(n) / n_1 + ...) ~ the reference's "comparable to
@@ -28,10 +28,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# All contractions run at HIGHEST precision: TPU's default matmul precision
-# is bfloat16, which costs ~3 decimal digits in H(k) — a visible DOS error at
-# sharp spectral features (eta ~ 1e-2).  The contraction is a tiny fraction
-# of the spectral pipeline's FLOPs, so full f32 accumulation is nearly free.
+# All contractions run at HIGHEST precision: a reduced-precision default for
+# f32 products (bf16 or TF32 passes) costs ~3 decimal digits in H(k) — a
+# visible DOS error at sharp spectral features (eta ~ 1e-2).  The
+# contraction is a tiny fraction of the spectral pipeline's FLOPs.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -39,8 +39,7 @@ def phase_matrix(x, n, offset, period, deriv=0, dtype=jnp.complex128):
     """(K, n) matrix of ``(2 pi i f)^deriv * exp(2 pi i f x/t)``, f = offset + 0..n-1.
 
     Computed entirely in the real/complex counterparts of ``dtype`` — never
-    materializing complex128 when a complex64 series is requested, which the
-    TPU x64 rewriter cannot convert.
+    materializing complex128 when a complex64 series is requested.
     """
     rdt = jnp.finfo(dtype).dtype  # real counterpart of the complex dtype
     x = jnp.asarray(x, rdt)

@@ -1,37 +1,30 @@
-"""Full-grid split-f64 spectral sweeps: slab-streamed H(k) + eigenvalues +
-broadened DOS over a complete npt^3 PTR grid.
+"""Full-grid spectral sweeps: slab-streamed H(k) + eigenvalues + broadened
+DOS over a complete npt^3 PTR grid, in native complex128/f64.
 
-Why full grid instead of symmetry-reduced representatives: scattered-point
-evaluation (``csplit_eval.evaluate_points_split``) pays per-point phase
-products in emulated f64 — measured ~50x slower per k-point than tensor-grid
-contraction on TPU v5e — while cubic symmetry reduction only shrinks the
-point count by <= 48x.  Streaming the FULL grid through the MXU (Ozaki-slice
-matmuls, ``ops/ozaki.py``) therefore beats the reduced scatter path outright
-and eliminates the host-side ``symptr_rule`` enumeration (~1 min/rung at
-npt=1600) entirely.  Orbit sums make the full-grid sum exactly equal to the
-symmetrized reduced sum (reference AutoPTR semantics,
-``/root/reference/src/brillouin.jl:421-444``).
+Why full grid instead of symmetry-reduced representatives: on a tensor grid
+the Fourier evaluation is two dense matrix products per slab, while
+scattered points pay a per-point phase product for every coefficient; cubic
+symmetry reduction only shrinks the point count by <= 48x, and the full grid
+needs no host-side ``symptr_rule`` enumeration.  Orbit sums make the
+full-grid sum exactly equal to the symmetrized reduced sum (reference
+AutoPTR semantics, ``src/brillouin.jl:421-444``).
 
-Streaming structure (v2): persistent state is O(npt), not O(npt^2) — the
-first engine pre-contracted the inner TWO dimensions into npt^2-sized
-pre-sliced operands and OOMed 16 GB HBM at npt=1600.  Here only dimension 3
-is pre-contracted (``I3``: (n1, n2*6*npt) — megabytes); each slab then runs
-two Ozaki matmul stages on-device:
+Streaming structure: persistent state is O(npt).  Dimension 3 is contracted
+once per rung (``V``: (n1, n2*ne*npt)); each slab of S outer grid rows then
+runs two complex128 matrix products over the ``ne = m (m+1)/2`` independent
+Hermitian entries:
 
-  stage A: slab phases (S, n1)   x I3             -> J  (n2, 6, S*npt)
-  stage B: phase table (npt, n2) x J (per slab)   -> H  (npt, 6, S*npt)
+  stage A: slab phases (S, n1)    x V            -> J (n2, ne*S*npt3)
+  stage B: phase table (npt2, n2) x J (per slab) -> H (npt2, ne, S*npt3)
 
-stage B's left operand is fixed per rung, so its slices are prepared once;
-its right operand is per-slab and tiny.  Both stages use Karatsuba complex
-multiplication (3 real products) over the 6 independent Hermitian entries,
-stage B skipping the imaginary parts of the 3 diagonals.  Entry-major rows
-then feed the struct-of-arrays Cardano (``ops/eigh3.eigvalsh3_rows``; the
-AoS layout measured 4x slower) and an omega-batched two-float Lorentzian
+Entry-major rows then feed the struct-of-arrays Cardano
+(``ops/eigh3.eigvalsh3_rows``; general m assembles the matrices for
+``jnp.linalg.eigvalsh``) and an omega-batched two-float Lorentzian
 reduction (hi parts of ``omega - e`` cancel exactly by Sterbenz; lo parts
 carry the f64 residue).
 
-Used by ``benchmarks/northstar.py --engine fullgrid`` (SrVO3 1000-omega
-ladder).
+Used by ``dos.LorentzianFullGrid`` and ``benchmarks/northstar.py --engine
+fullgrid``.
 """
 from __future__ import annotations
 
@@ -40,17 +33,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from autobzcore_tpu.ops.csplit_eval import contract_split
 from autobzcore_tpu.ops.eigh3 import eigvalsh3_rows
-from autobzcore_tpu.ops.ozaki import (
-    ozaki_matmul_pairs,
-    ozaki_matmul_prepared,
-    ozaki_matmul_sliced,
-    ozaki_prepare_lhs,
-    ozaki_prepare_lhs_pairs,
-    ozaki_prepare_rhs,
-    ozaki_sliced_safe_n,
-)
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _entries(m):
     """Hermitian entry order: the ``m`` real diagonals first, then the
@@ -60,18 +46,27 @@ def _entries(m):
     )
 
 
+def _two_float(e):
+    """Split f64 ``e`` into f32 ``(hi, lo)`` with ``hi + lo == e`` to ~2^-48
+    relative.  Veltkamp's split keeps 24 significant bits in ``hi`` (exact in
+    f32) and ``lo = e - hi`` exactly; the shorter ``e - f64(f32(e))`` is not
+    used because XLA may fold that convert round trip away as excess
+    precision, which silently zeroes ``lo``."""
+    c = e * (2.0**29 + 1.0)
+    hi = c - (c - e)
+    return hi.astype(jnp.float32), (e - hi).astype(jnp.float32)
+
+
 def _phase_table(npt, nfreq, offset):
-    """Host-f64 (cos, sin) tables for the fractional PTR nodes: exact IEEE
-    f64 trig (the TPU's double-single emulation is weaker)."""
+    """Host-f64 phases ``exp(2 pi i u f)`` at the fractional PTR nodes."""
     freqs = offset + np.arange(nfreq)
-    ang = 2 * np.pi * np.outer(np.arange(npt) / npt, freqs)
-    return np.cos(ang), np.sin(ang)
+    return np.exp(2j * np.pi * np.outer(np.arange(npt) / npt, freqs))
 
 
 class FullGridSpectralSweep:
     """Broadened-DOS sweep engine for m-band Hermitian Fourier series
-    (m=3 takes the SoA Cardano fast path; general m gathers split matrices
-    and uses Rayleigh-quotient f64 eigenvalues).
+    (m=3 takes the SoA Cardano fast path; general m assembles the Hermitian
+    matrices for a batched ``eigvalsh``).
 
     Parameters
     ----------
@@ -79,14 +74,13 @@ class FullGridSpectralSweep:
     omegas : (W,) frequency grid.
     eta : Lorentzian broadening.
     slab : grid rows of the outer dimension per streamed step.
-    slabs_per_dispatch : fori_loop steps per device dispatch (bounds
-        single-dispatch wall time on hosted TPU workers).
+    slabs_per_dispatch : fori_loop steps per device dispatch.
     omega_batch : omegas per Lorentzian pass (bounds the broadcast
         intermediate together with the ~1.6M-point chunking).
     """
 
-    def __init__(self, series, omegas, eta, ndiag=6, slab=8,
-                 slabs_per_dispatch=32, omega_batch=100):
+    def __init__(self, series, omegas, eta, slab=8, slabs_per_dispatch=32,
+                 omega_batch=100):
         c = np.asarray(series.c)
         if c.ndim != 5 or c.shape[-2] != c.shape[-1]:
             raise ValueError(
@@ -96,9 +90,9 @@ class FullGridSpectralSweep:
         self.m = m
         self.n1, self.n2, self.n3 = c.shape[:3]
         self.offset = tuple(int(o) for o in series.offset)
-        # the engine keeps only the 6 independent Hermitian entries (real
-        # diagonals in stage B), so a non-Hermitian series would silently be
-        # "hermitianized" — verify H(k) = H(k)^H densely at a few k-points
+        # the engine keeps only the independent Hermitian entries, so a
+        # non-Hermitian series would silently be "hermitianized" — verify
+        # H(k) = H(k)^H densely at a few k-points
         rng = np.random.default_rng(7)
         for k in rng.uniform(size=(2, 3)):
             ph = [np.exp(2j * np.pi * k[d] * (self.offset[d] + np.arange(c.shape[d])))
@@ -110,33 +104,22 @@ class FullGridSpectralSweep:
                     "FullGridSpectralSweep requires a Hermitian series "
                     "(c(-R) = c(R)^H); H(k) at a test point is not Hermitian"
                 )
-        # m(m+1)/2 independent Hermitian entries, split re/im (host)
         self.entries = _entries(m)
         self.ne = len(self.entries)
         c6 = np.stack([c[..., i, j] for (i, j) in self.entries], axis=-1)
-        self.c6_re = jnp.asarray(c6.real, jnp.float64)
-        self.c6_im = jnp.asarray(c6.imag, jnp.float64)
+        self.c6 = jnp.asarray(c6, jnp.complex128)
         # gather map for the general-m matrix assembly: entry index of
-        # (min(i,j), max(i,j)) and the conjugation sign of the imag part
+        # (min(i,j), max(i,j)), conjugated below the diagonal
         idx = np.zeros((m, m), np.int32)
-        sgn = np.zeros((m, m))
         for e, (i, j) in enumerate(self.entries):
             idx[i, j] = e
             idx[j, i] = e
-            sgn[i, j] = 1.0 if i != j else 0.0
-            sgn[j, i] = -1.0 if i != j else 0.0
-        self._idx_mat = jnp.asarray(idx)
-        self._sgn_mat = jnp.asarray(sgn)
+        self._idx_mat = idx
+        self._lower = np.tril(np.ones((m, m), bool), -1)
         self.omegas = np.asarray(omegas, np.float64)
         self.eta = float(eta)
-        self.ndiag = ndiag
         self.slab = slab
         self.spd = slabs_per_dispatch
-        # stage B contracts n2 terms per diagonal-concat dot: beyond the
-        # exact-f32-accumulation window it must take the per-pair chunked
-        # path (ozaki_matmul_pairs) or the claimed f64 accuracy silently
-        # degrades toward f32
-        self._stageb_pairs = self.n2 > ozaki_sliced_safe_n(ndiag)
         W = self.omegas.size
         ob = max(1, min(int(omega_batch), W))
         while W % ob:
@@ -160,46 +143,48 @@ class FullGridSpectralSweep:
     # -- per-rung preparation ------------------------------------------------
 
     def _prepare(self, npt):
-        """Pre-contract dimension 3 and pre-slice the per-rung operands:
-        I3 components (n1, n2*6*npt) for stage A, and the stage-B phase-table
-        slice concatenations.  Everything here is O(npt) memory."""
-        c3, s3 = _phase_table(npt, self.n3, self.offset[2])
-        c2, s2 = _phase_table(npt, self.n2, self.offset[1])
+        """Contract dimension 3 once per rung: ``V`` (n1, n2*ne*npt3)."""
+        n1 = self.n1
 
         @jax.jit
-        def prep(cre, cim, c3, s3, c2, s2):
-            # (n1, n2, n3, 6) -> contract n3 -> (npt3, n1, n2, 6)
-            vre, vim = contract_split(cre, cim, c3, s3, 2, ndiag=self.ndiag)
-            # -> (n1, n2, 6, npt3) -> (n1, n2*6*npt3)
-            vre = jnp.transpose(vre, (1, 2, 3, 0)).reshape(self.n1, -1)
-            vim = jnp.transpose(vim, (1, 2, 3, 0)).reshape(self.n1, -1)
-            out = ()
-            for b in (vre, vim, vre + vim):
-                out += ozaki_prepare_rhs(b, self.ndiag)
-            # stage-B left operands are fixed per rung: slice once (per-pair
-            # raw slices when n2 exceeds the exact diag-concat window)
-            prep_lhs = (ozaki_prepare_lhs_pairs if self._stageb_pairs
-                        else ozaki_prepare_lhs)
-            for a in (c2, s2, c2 + s2):
-                a_sl, sA = prep_lhs(a, self.ndiag)
-                out += tuple(a_sl) + (sA,)
-            return out
+        def prep(c6, e3):
+            # (n1, n2, n3, ne) x (npt3, n3) -> (npt3, n1, n2, ne)
+            v = jnp.tensordot(e3, c6, axes=([1], [2]), precision=_HIGHEST)
+            return jnp.transpose(v, (1, 2, 3, 0)).reshape(n1, -1)
 
-        return prep(self.c6_re, self.c6_im, jnp.asarray(c3), jnp.asarray(s3),
-                    jnp.asarray(c2), jnp.asarray(s2))
+        e3 = _phase_table(npt, self.n3, self.offset[2])
+        return prep(self.c6, jnp.asarray(e3))
 
     # -- slab kernel ---------------------------------------------------------
+
+    def _bands(self, h, npt):
+        """Eigenvalue rows of the entry-major slab ``h`` (npt2, ne, S*npt3):
+        a tuple of m arrays (npt2, S*npt3)."""
+        m = self.m
+        if m == 1:
+            return (h[:, 0].real,)
+        if m == 3:
+            return eigvalsh3_rows(
+                h[:, 0].real, h[:, 1].real, h[:, 2].real,
+                h[:, 3].real, h[:, 3].imag,
+                h[:, 4].real, h[:, 4].imag,
+                h[:, 5].real, h[:, 5].imag,
+            )
+        full = h[:, self._idx_mat]  # (npt2, m, m, S*npt3)
+        lower = jnp.asarray(self._lower)[None, :, :, None]
+        full = jnp.where(lower, jnp.conj(full), full)
+        full = jnp.moveaxis(full, 3, 1).reshape(-1, m, m)
+        e = jnp.linalg.eigvalsh(full)  # (N, m)
+        return tuple(e[:, b].reshape(npt, -1) for b in range(m))
 
     def _make_run(self, npt):
         S = self.slab
         n1, n2 = self.n1, self.n2
-        m, ne = self.m, self.ne
+        ne = self.ne
         W = self.omegas.size
         OB = self.omega_batch
         eta32 = jnp.float32(self.eta)
-        nd = self.ndiag
         M2 = ne * S * npt  # stage-B row width (entry-major, (ne, S, npt3))
-        OFF = m * S * npt  # start of the off-diagonal block (diagonals first)
         # Lorentzian point chunking: ~1.6M point-band pairs per pass per band
         # loop, chunk along npt2
         rows = max(1, min(int(1.6e6 // (S * npt)), npt))
@@ -208,91 +193,23 @@ class FullGridSpectralSweep:
         nch = npt // rows
         CH = rows * S * npt
 
-        def unpack(prepared):
-            i = 0
-            rhs = []
-            for _ in range(3):  # I3 re / im / sum
-                rhs.append((prepared[i], prepared[i + 1]))
-                i += 2
-            lhs = []
-            for _ in range(3):  # cos2 / sin2 / cos2+sin2 slice cats
-                lhs.append((prepared[i:i + nd], prepared[i + nd]))
-                i += nd + 1
-            return rhs, lhs
-
         @jax.jit
-        def run(i0, nsl, cosP, sinP, rowmask, omhi, omlo, *prepared):
-            (i3re, i3im, i3sm), (a2c, a2s, a2cs) = unpack(prepared)
-
+        def run(i0, nsl, P1, rowmask, e2, omhi, omlo, V):
             def body(i, acc):
-                cs = jax.lax.dynamic_slice(cosP, (i * S, 0), (S, n1))
-                sn = jax.lax.dynamic_slice(sinP, (i * S, 0), (S, n1))
+                p1 = jax.lax.dynamic_slice(P1, (i * S, 0), (S, n1))
                 w = jax.lax.dynamic_slice(rowmask, (i * S,), (S,))
-                # ---- stage A: contract n1 (Karatsuba x Ozaki) ----
-                JA = ozaki_matmul_prepared(cs, *i3re, n1)  # (S, n2*6*npt3)
-                JB = ozaki_matmul_prepared(sn, *i3im, n1)
-                JC = ozaki_matmul_prepared(cs + sn, *i3sm, n1)
-                jre = JA - JB
-                jim = JC - JA - JB
-                # -> (n2, ne*S*npt3) with column layout (ne, S, npt3)
-                def tob(x):
-                    return jnp.transpose(
-                        x.reshape(S, n2, ne, npt), (1, 2, 0, 3)
-                    ).reshape(n2, M2)
-
-                jre = tob(jre)
-                jim = tob(jim)
-                bre, sre = ozaki_prepare_rhs(jre, nd)
-                bim, sim = ozaki_prepare_rhs(jim, nd)
+                # ---- stage A: contract n1 ----
+                J = jnp.dot(p1, V, precision=_HIGHEST)  # (S, n2*ne*npt3)
+                J = jnp.transpose(J.reshape(S, n2, ne, npt), (1, 2, 0, 3)).reshape(n2, M2)
                 # ---- stage B: contract n2 ----
-                stageb = ozaki_matmul_pairs if self._stageb_pairs else ozaki_matmul_sliced
-                R1 = stageb(a2c[0], a2c[1], bre, sre, n2)  # (npt2, M2)
-                R2 = stageb(a2s[0], a2s[1], bim, sim, n2)
-                re6 = (R1 - R2).reshape(npt, ne, S * npt)
-                if ne > m:
-                    # off-diagonal tail only: diagonals of Hermitian H are real
-                    bsm, ssm = ozaki_prepare_rhs((jre + jim)[:, OFF:], nd)
-                    R3 = stageb(a2cs[0], a2cs[1], bsm, ssm, n2)
-                    im3 = (R3 - R1[:, OFF:] - R2[:, OFF:]).reshape(
-                        npt, ne - m, S * npt
-                    )
-                if m == 3:
-                    lo, mid, hi = eigvalsh3_rows(
-                        re6[:, 0], re6[:, 1], re6[:, 2],
-                        re6[:, 3], im3[:, 0],
-                        re6[:, 4], im3[:, 1],
-                        re6[:, 5], im3[:, 2],
-                    )
-                    bands = (lo, mid, hi)  # each (npt2, S*npt3)
-                elif m == 1:
-                    bands = (re6[:, 0],)
-                else:
-                    # general m: gather entry rows into (N, m, m) split
-                    # matrices and take MXU-friendly f64 eigenvalues (native
-                    # c64 eigh + split-f64 Rayleigh quotients; within the
-                    # engine's two-float-f32 Lorentzian floor)
-                    from autobzcore_tpu.ops.rayleigh import eigvalsh_rayleigh
-
-                    rfull = jnp.moveaxis(re6[:, self._idx_mat], 3, 1)
-                    imz = jnp.concatenate(
-                        [jnp.zeros((npt, m, S * npt), im3.dtype), im3], axis=1
-                    )
-                    ifull = jnp.moveaxis(
-                        imz[:, self._idx_mat] * self._sgn_mat[None, :, :, None],
-                        3, 1,
-                    )
-                    N = npt * S * npt
-                    e = eigvalsh_rayleigh(
-                        rfull.reshape(N, m, m), ifull.reshape(N, m, m)
-                    )  # (N, m)
-                    bands = tuple(e[:, b].reshape(npt, S * npt) for b in range(m))
+                h = jnp.dot(e2, J, precision=_HIGHEST).reshape(npt, ne, S * npt)
+                bands = self._bands(h, npt)
                 # ---- Lorentzian reduction, chunked along npt2 ----
                 wcol = jnp.repeat(w.astype(jnp.float32), npt)  # (S*npt3,)
                 wch = jnp.broadcast_to(wcol[None], (rows, S * npt)).reshape(1, CH)
 
                 def echunks(e):
-                    ehi = e.astype(jnp.float32)
-                    elo = (e - ehi).astype(jnp.float32)
+                    ehi, elo = _two_float(e)
                     return ehi.reshape(nch, CH), elo.reshape(nch, CH)
 
                 echs = ()
@@ -302,29 +219,30 @@ class FullGridSpectralSweep:
                 def chunk(carry, xs):
                     def one(ob):
                         oh, ol = ob  # (OB,)
-                        tot = jnp.zeros((OB,), jnp.float32)
+                        tot = jnp.zeros((OB,), jnp.float64)
                         for b in range(len(bands)):
                             ehi, elo = xs[2 * b], xs[2 * b + 1]
                             t = (oh[:, None] - ehi[None]) + (ol[:, None] - elo[None])
-                            tot = tot + jnp.sum(
-                                (eta32 / (t * t + eta32 * eta32)) * wch, axis=1
-                            )
+                            # f32 terms, f64 sums: an f32 running sum over a
+                            # chunk's ~1e5 terms loses ~1e-6 of the total
+                            lor = (eta32 / (t * t + eta32 * eta32)) * wch
+                            tot = tot + jnp.sum(lor.astype(jnp.float64), axis=1)
                         return tot
 
                     d = jax.lax.map(
                         one, (omhi.reshape(-1, OB), omlo.reshape(-1, OB))
                     ).reshape(W)
-                    return carry + d.astype(jnp.float64), None
+                    return carry + d, None
 
-                init = jnp.zeros((W,), jnp.float64) + cs[0, 0] * 0.0
+                init = jnp.zeros((W,), jnp.float64) + w[0] * 0.0
                 d, _ = jax.lax.scan(chunk, init, echs)
                 return acc + d
 
-            # init derives from cosP so that under shard_map the carry is
+            # init derives from rowmask so that under shard_map the carry is
             # device-varying like the body output (plain zeros are unvarying
             # and fail the while_loop carry-type check); outside shard_map
             # this is a constant-folded no-op
-            init = jnp.zeros((W,), jnp.float64) + cosP[0, 0] * 0.0
+            init = jnp.zeros((W,), jnp.float64) + rowmask[0] * 0.0
             return jax.lax.fori_loop(i0, i0 + nsl, body, init)
 
         return run
@@ -333,59 +251,57 @@ class FullGridSpectralSweep:
 
     def _tables(self, npt, row_multiple):
         S = self.slab
-        c1, s1 = _phase_table(npt, self.n1, self.offset[0])
         nrows = -(-npt // row_multiple) * row_multiple
-        cosP = np.zeros((nrows, self.n1))
-        sinP = np.zeros((nrows, self.n1))
-        cosP[:npt], sinP[:npt] = c1, s1
+        P1 = np.zeros((nrows, self.n1), np.complex128)
+        P1[:npt] = _phase_table(npt, self.n1, self.offset[0])
         rowmask = np.zeros(nrows)
         rowmask[:npt] = 1.0
+        e2 = _phase_table(npt, self.n2, self.offset[1])
         omhi = self.omegas.astype(np.float32)
         omlo = (self.omegas - omhi).astype(np.float32)
-        return (jnp.asarray(cosP), jnp.asarray(sinP), jnp.asarray(rowmask),
+        return (jnp.asarray(P1), jnp.asarray(rowmask), jnp.asarray(e2),
                 jnp.asarray(omhi), jnp.asarray(omlo), nrows // S)
 
     def rung(self, npt, progress=None):
         """DOS partial sums over the full npt^3 grid: returns the (W,) array
         ``sum_k sum_b eta/((omega - e_b(k))^2 + eta^2) / pi`` (caller applies
         the det(B)/npt^3 measure)."""
-        prepared = self._prepare(npt)
-        cosP, sinP, rowmask, omhi, omlo, nslab = self._tables(npt, self.slab)
+        V = self._prepare(npt)
+        P1, rowmask, e2, omhi, omlo, nslab = self._tables(npt, self.slab)
         run = self._run_cache.setdefault(npt, self._make_run(npt))
         acc = np.zeros(self.omegas.size)
         for i0 in range(0, nslab, self.spd):
             nsl = min(self.spd, nslab - i0)
-            acc += np.asarray(run(i0, nsl, cosP, sinP, rowmask, omhi, omlo, *prepared))
+            acc += np.asarray(run(i0, nsl, P1, rowmask, e2, omhi, omlo, V))
             if progress is not None:
                 progress(i0 + nsl, nslab)
         return acc / np.pi
 
     def rung_sharded(self, npt, mesh, axis="k"):
-        """Pod-parallel rung: outer-dimension grid rows shard over ``mesh``'s
-        ``axis`` (the pre-sliced per-rung operands are O(npt) and replicate),
-        per-device slab loops run independently, and one ``psum`` over ICI
-        combines the (W,) DOS partials.  The full-grid analogue of the
-        reference's ``BatchIntegrand`` distribution hook
-        (``/root/reference/src/batch.jl:5-7``)."""
+        """Mesh-parallel rung: outer-dimension grid rows shard over
+        ``mesh``'s ``axis`` (the per-rung operands are O(npt) and
+        replicate), per-device slab loops run independently, and one
+        ``psum`` combines the (W,) DOS partials.  The full-grid analogue of
+        the reference's ``BatchIntegrand`` distribution hook
+        (``src/batch.jl:5-7``)."""
         from jax.sharding import PartitionSpec as P
-        from jax.experimental.shard_map import shard_map
 
         S = self.slab
         ndev = mesh.shape[axis]
-        prepared = self._prepare(npt)
-        cosP, sinP, rowmask, omhi, omlo, nslab = self._tables(npt, S * ndev)
+        V = self._prepare(npt)
+        P1, rowmask, e2, omhi, omlo, nslab = self._tables(npt, S * ndev)
         run = self._run_cache.setdefault(npt, self._make_run(npt))
         nsl_local = nslab // ndev
 
         @jax.jit
-        def sharded(cosP, sinP, rowmask, omhi, omlo, *prepared):
-            def local(cosP, sinP, rowmask, omhi, omlo, *prepared):
-                d = run(0, nsl_local, cosP, sinP, rowmask, omhi, omlo, *prepared)
+        def sharded(P1, rowmask, e2, omhi, omlo, V):
+            def local(P1, rowmask, e2, omhi, omlo, V):
+                d = run(0, nsl_local, P1, rowmask, e2, omhi, omlo, V)
                 return jax.lax.psum(d, axis)
 
-            spec = [P(axis), P(axis), P(axis), P(), P()] + [P()] * len(prepared)
-            return shard_map(local, mesh=mesh, in_specs=tuple(spec),
-                             out_specs=P())(cosP, sinP, rowmask, omhi, omlo, *prepared)
+            spec = (P(axis), P(axis), P(), P(), P(), P())
+            return jax.shard_map(local, mesh=mesh, in_specs=spec,
+                                 out_specs=P())(P1, rowmask, e2, omhi, omlo, V)
 
-        acc = np.asarray(sharded(cosP, sinP, rowmask, omhi, omlo, *prepared))
+        acc = np.asarray(sharded(P1, rowmask, e2, omhi, omlo, V))
         return acc / np.pi

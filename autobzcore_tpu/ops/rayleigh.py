@@ -1,9 +1,9 @@
 """Rayleigh-refined f64 Hermitian eigenvalues from a c64 eigensolve.
 
-TPU's native eigensolver path is complex64; full-f64 eigenvalues via the
-real-symmetric 2m x 2m embedding (``csplit_eval.eigh_split``) pay an
-emulated-f64 QR that measured ~3 ms per 30-band k-point.  For eigenVALUES,
-second-order perturbation theory gives a cheaper route:
+Full-f64 eigenvalues via the real-symmetric 2m x 2m embedding
+(``csplit_eval.eigh_split``) pay an f64 QR on a matrix twice the size.  For
+eigenVALUES, second-order perturbation theory gives a cheaper route (the
+opt-in ``GGR(precision="rayleigh")`` tier):
 
 1. ``eigh`` in complex64 (native, fast) -> vectors ``U`` with per-column
    error ~eps_f32 * kappa;
@@ -13,9 +13,8 @@ second-order perturbation theory gives a cheaper route:
    inside a near-degenerate cluster the quotient stays within the cluster's
    spread (harmless for spectral sums).
 
-All contractions are elementwise broadcast-sums (TPU's emulated-f64 batched
-dot-generals lose the low word); bands process in chunks to bound the
-(K, m, m, chunk) broadcast temporary.
+All contractions are elementwise broadcast-sums; bands process in chunks to
+bound the (K, m, m, chunk) broadcast temporary.
 
 Used by the GGR split path for general band counts; ``eigvalsh3_split``
 (closed-form Cardano) stays the m = 3 fast path.
@@ -35,8 +34,7 @@ def eigvalsh_rayleigh(h_re, h_im, band_chunk=None, return_vectors=False):
     m = h_re.shape[-1]
     if band_chunk is None:
         # bound the (..., m, m, chunk) broadcast temporary: ~2 m^2 elements
-        # per point keeps 30-band grids inside HBM (TPU pads the trailing
-        # (m, chunk) dims onto (8, 128) tiles)
+        # per point keeps 30-band grids inside device memory
         band_chunk = max(1, min(m, 64 // m))
     hc = h_re.astype(jnp.float32) + 1j * h_im.astype(jnp.float32)
     _, U = jnp.linalg.eigh(hc)  # (..., m, m) c64, native

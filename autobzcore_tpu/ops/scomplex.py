@@ -1,17 +1,14 @@
-"""Split-complex value type for f64-on-TPU integrand kernels.
+"""Split-complex value type for the opt-in split-f64 integrand tiers.
 
-TPU backends have no complex128: XLA's x64 rewriter aborts on any f64->c128
-conversion, so double-precision *adaptive* solves (the IAI path) cannot carry
-complex arrays through the interval pools.  :class:`SplitComplex` represents
+``IAI(precision="split"|"guided")`` carries complex values through the
+interval pools without complex128 arrays.  :class:`SplitComplex` represents
 complex arrays as (re, im) f64 pairs with enough operator algebra that the
 shipped observable kernels — Green's-function traces, adjugate inverses,
 Lorentzian DOS — read the same as their complex forms.  It is a registered
 pytree, so it flows through ``vmap``/``lax.while_loop``/the GK pool machinery
 unchanged.
 
-All arithmetic is elementwise (VPU): per the TPU f64 field notes
-(docs/DESIGN.md), emulated f64 is faithful elementwise but batched
-dot-generals lose the low word, so no op here lowers to a matmul.
+All arithmetic is elementwise: no op here lowers to a matmul.
 
 Complements ``ops/csplit_eval.py`` (grid/point evaluation + eigensolves on
 split pairs); reference context: the IAI efficiency claim this enables at
@@ -35,7 +32,7 @@ def _parts(x):
         if isinstance(x, jax.core.Tracer):
             raise TypeError(
                 "complex traced arrays cannot mix with SplitComplex — keep the "
-                "whole kernel split (c128 does not exist on TPU)"
+                "whole kernel split"
             )
         return np.real(x), np.imag(x)
     return x, None  # None == exact zero imaginary part
@@ -90,21 +87,8 @@ class SplitComplex:
         return jnp.zeros_like(self.re) if self.im is None else self.im
 
     def join(self):
-        """Materialize as a complex array (host/CPU use only).
-
-        Concrete arrays living on a non-CPU device transfer as real pairs and
-        join in numpy: an eager ``1j * im`` would dispatch a complex128
-        program to the TPU, which its compiler rejects outright ("Element
-        type C128 is not supported on TPU")."""
-        re, im = self.re, self.imag
-        if isinstance(re, jax.Array) and not isinstance(re, jax.core.Tracer):
-            try:
-                on_cpu = all(d.platform == "cpu" for d in re.devices())
-            except Exception:
-                on_cpu = True
-            if not on_cpu:
-                return np.asarray(re) + 1j * np.asarray(im)
-        return re + 1j * im
+        """Materialize as a complex array."""
+        return self.re + 1j * self.imag
 
     def conj(self):
         return SplitComplex(self.re, _neg_im(self.im))
@@ -192,7 +176,7 @@ def sc_transpose(M: SplitComplex):
 
 def sc_det_small(M: SplitComplex):
     """Determinant for m <= 3, fully expanded (elementwise ops only — no LU,
-    no MXU padding; mirrors models/observables._trace_inv_small)."""
+    mirrors models/observables._trace_inv_small)."""
     m = M.shape[-1]
     if m == 1:
         return M[..., 0, 0]

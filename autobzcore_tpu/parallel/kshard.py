@@ -1,7 +1,7 @@
 """k-grid sharding over a device mesh.
 
-The scale-out design (SURVEY.md §2.4 TPU mapping): symmetry-reduced k-point
-batches are sharded over a mesh axis and combined with ``psum`` over ICI,
+The scale-out design: symmetry-reduced k-point batches are sharded over a
+mesh axis and combined with ``psum`` over the device interconnect,
 while parameter (omega) grids shard over a second, data-parallel axis.  This
 replaces the reference's user-side ``BatchIntegrand`` distribution hook
 (``src/batch.jl:5-7``) with jax collectives.
@@ -115,8 +115,8 @@ def transport_sweep_sharded(series: FourierSeries, bz: SymmetricBZ, npt: int,
                             k_axis: str = "k", w_axis: str = "w"):
     """Kubo-Greenwood transport sweep ``Gamma_ab(omega)`` with the
     (symmetry-reduced) k-grid sharded over ``k_axis`` (psum-combined) and the
-    frequency grid data-parallel over ``w_axis`` — the pod layout for the
-    transport family (single-chip fast path:
+    frequency grid data-parallel over ``w_axis`` — the multi-device layout
+    for the transport family (single-device fast path:
     :class:`~..models.observables.TransportSolver`).
 
     Returns (len(omegas), d, d), group-averaged back to the full zone for
@@ -157,8 +157,8 @@ def ggr_dos_sharded(series: FourierSeries, bz: SymmetricBZ, npt: int, Es,
                     mesh: Mesh, k_axis: str = "k", w_axis: str = "w"):
     """Sharded Gilat-Raubenheimer DOS sweep: the eigensolve grid shards over
     ``k_axis`` (psum-combined) while the energy grid is data-parallel over
-    ``w_axis`` — the pod-scale layout for near-singular DOS workloads
-    (BASELINE config 5).
+    ``w_axis`` — the multi-device layout for near-singular DOS workloads
+    (BASELINE.json config 5).
 
     Returns DOS values (len(Es),).
     """

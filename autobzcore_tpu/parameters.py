@@ -6,7 +6,7 @@ Native equivalent of reference ``src/parameters.jl``: ``MixedParameters``
 (``:56-79``), and ``ParameterIntegrand`` partial application (``:80-111``).
 
 ``MixedParameters`` is a registered pytree so parameter sweeps can be stacked
-and fed to ``jax.vmap``/``lax.map`` (the TPU-native replacement for the
+and fed to ``jax.vmap``/``lax.map`` (the on-device replacement for the
 reference's threaded ``batchsolve``).
 """
 from __future__ import annotations

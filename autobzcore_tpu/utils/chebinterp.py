@@ -5,7 +5,7 @@ The reference's aps_example builds its DOS curve with ``hchebinterp(solver,
 bisect the interval, interpolating with Chebyshev polynomials until the
 interpolant matches the function to ``atol``.
 
-TPU-native twist: each refinement round gathers the Chebyshev nodes of *all*
+Batched twist: each refinement round gathers the Chebyshev nodes of *all*
 pending panels into one batched call, so the function (usually a vmapped
 integral sweep) evaluates the whole frontier in a single device dispatch —
 where the reference evaluates solver calls serially.

@@ -1,14 +1,14 @@
-"""BASELINE config 5: 30-band near-singular DOS on one chip.
+"""BASELINE config 5: 30-band near-singular DOS on one device.
 
 Compares the two native routes to a 1000-energy broadened DOS curve for a
-synthetic 30-band Wannier model (``models.synthetic_wannier``), matching the
-round-2 measurement setup (npt=60 grid):
+synthetic 30-band Wannier model (``models.synthetic_wannier``) on an npt=60
+grid:
 
 1. ``GGR(npt=60)`` on the InversionSymIBZ-reduced grid — spectral init
-   (eigh + velocities, the 70.9 s round-2 number) + the energy sweep;
-2. ``FullGridSpectralSweep`` (m-generic since round 3: gather-assembled
-   split matrices + Rayleigh-quotient f64 eigenvalues) streaming the FULL
-   npt^3 grid — one rung of the LorentzianFullGrid ladder.
+   (eigh + velocities) + the energy sweep;
+2. ``FullGridSpectralSweep`` (m-generic: gather-assembled Hermitian
+   matrices + batched eigvalsh) streaming the FULL npt^3 grid — one rung of
+   the LorentzianFullGrid ladder.
 
 The GGR box broadening handles eta -> 0 exactly; the full-grid engine
 computes the eta-Lorentzian curve.  At eta ~ grid spacing they measure the
@@ -67,7 +67,7 @@ def main(argv=None):
           f"max D={np.max(D1):.4f}", file=sys.stderr)
 
     if not args.skip_ggr:
-        # --- GGR route (round-2 reference point: 70.9 s init warm) ---
+        # --- GGR route ---
         alg = GGR(npt=args.npt)
         # dos_init runs init_cacheval eagerly — time it directly instead of
         # paying the dominant spectral build twice

@@ -1,6 +1,6 @@
 #!/bin/bash
-# Round-4 depth-knob A/B matrix for the warm aps IAI leg (run on a QUIET
-# terminal: the hosted-TPU host load inflates walls 2-4x, BASELINE.md).
+# Depth-knob A/B matrix for the warm aps IAI leg (run on a quiet host: host
+# load inflates the walls of this depth-bound leg).
 # Each run prints the IAI telemetry line; results accumulate in $OUT.
 OUT=${OUT:-/tmp/iai_knob_ab.txt}
 cd "$(dirname "$0")/.." || exit 1

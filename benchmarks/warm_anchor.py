@@ -1,13 +1,13 @@
-"""CPU warm-scan anchor: the 12-omega SrVO3 DOS slice used for knob A/Bs.
+"""Warm-scan anchor: the 12-omega flagship DOS slice used for knob A/Bs.
 
 The flagship warm IAI leg is depth-bound (docs/DESIGN.md), so knob
-rankings must come from TPU wall clock — but VALUE CORRECTNESS of a knob
-(wider seed consumption, wider leaf bisection) is checkable cheaply on
-CPU: every config must reproduce the shipped config's DOS values to the
-certificate, with per-omega eval counts recorded for the eval-cost side
-of the tradeoff.  This is the "CPU anchor" referenced throughout
-BASELINE.md round-4 tables: 12 omegas at 5 meV spacing straddling the
-12.5 eV DOS peak, eta=1e-2, abstol=1e-3, warm scan (sorted order).
+rankings must come from device wall clock — but VALUE CORRECTNESS of a knob
+(wider seed consumption, wider leaf bisection) is checkable cheaply on any
+backend: every config must reproduce the shipped config's DOS values to the
+certificate, with per-omega eval counts recorded for the eval-cost side of
+the tradeoff.  12 omegas at 5 meV spacing straddling 12.5 eV, eta=1e-2,
+abstol=1e-3, warm scan (sorted order), on the seeded synthetic flagship
+model unless ``--hr``/``--wout`` name Wannier90 files.
 
 Usage: python benchmarks/warm_anchor.py [--configs shipped seedw16 ...]
 """
@@ -39,32 +39,20 @@ CONFIGS = {
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--configs", nargs="*", default=None)
-    p.add_argument("--hr", default="/root/reference/aps_example/svo_hr.dat")
-    p.add_argument("--wout", default="/root/reference/aps_example/svo.wout")
+    p.add_argument("--hr", default=None)
+    p.add_argument("--wout", default=None)
     p.add_argument("--abstol", type=float, default=1e-3)
     p.add_argument("--chunk", type=int, default=12)
     args = p.parse_args(argv)
 
-    import jax
-
-    if jax.devices()[0].platform == "cpu":
-        jax.config.update("jax_default_device", jax.devices("cpu")[0])
-    import jax.numpy as jnp
-
-    from autobzcore_tpu import CubicSymIBZ, FourierIntegrand, IntegralProblem, load_bz
+    from autobzcore_tpu import FourierIntegrand, IntegralProblem
     from autobzcore_tpu.brillouin import IAI
-    from autobzcore_tpu.io.wannier90 import hamiltonian_fourier_series, read_w90_hrdat
+    from autobzcore_tpu.models import flagship_model
     from autobzcore_tpu.models.observables import dos_trace
     from autobzcore_tpu.parallel.sweep import SweepSolver
 
-    on_tpu = jax.devices()[0].platform == "tpu"
-    if on_tpu:
-        jax.config.update("jax_enable_x64", False)
-    cdtype = jnp.complex64 if on_tpu else jnp.complex128
-
-    hr = read_w90_hrdat(args.hr)
-    h = hamiltonian_fourier_series(hr, dtype=cdtype)
-    bz = load_bz(CubicSymIBZ(), args.wout)
+    h, bz, label = flagship_model(args.hr, args.wout)
+    print(f"# {label} model", file=sys.stderr)
     eta = 1e-2
     integrand = FourierIntegrand(lambda hv, om, eta=None: dos_trace(hv, om, eta=eta),
                                  h, eta=eta)

@@ -32,15 +32,7 @@ def main():
     p.add_argument("--t2", type=float, default=0.1)
     p.add_argument("--nkz", type=int, default=21)
     p.add_argument("--out", default="topology.npz")
-    p.add_argument("--cpu", action="store_true")
     args = p.parse_args()
-
-    import jax
-
-    if args.cpu or not any(d.platform != "cpu" for d in jax.devices()):
-        jax.config.update("jax_default_device", jax.devices("cpu")[0])
-    else:
-        jax.config.update("jax_enable_x64", False)
 
     from autobzcore_tpu.brillouin import FBZ, load_bz
     from autobzcore_tpu.models.berry import BerryCurvatureSolver, lattice_chern
